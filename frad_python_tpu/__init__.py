@@ -1,13 +1,14 @@
-"""frad_python_tpu — TPU-native FrAD (Fourier Analogue-in-Digital) engine.
+"""frad_python_tpu — FrAD (Fourier Analogue-in-Digital) engine in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the FrAD archival
-streaming audio codec with full capability parity to the reference
-Python implementation (H4n-uL/FrAD_Python), re-architected TPU-first:
+A from-scratch JAX/XLA implementation of the FrAD archival streaming
+audio codec with full capability parity to the reference Python
+implementation (H4n-uL/FrAD_Python), re-architected for an accelerator:
 
-* batched tensor pipeline (DCT / masking / quantisation) on the MXU
+* batched tensor pipeline (DCT / masking / quantisation) as fused
+  jitted cores on the default device (a GPU, or the host CPU)
 * vectorised byte-domain kernels + C++ native module on the host
-* `parallel/` shards frame batches over a `jax.sharding.Mesh` with
-  ICI halo exchange for overlap state
+* `parallel/` shards frame batches over a `jax.sharding.Mesh` with a
+  ring halo exchange for overlap state
 
 Public API mirrors the reference `libfrad` package
 (src/libfrad/__init__.py): Encoder/Decoder/Repairer engines, ASFH,
@@ -26,9 +27,9 @@ import os
 # r4 advisor's "decoded PCM nondeterministic for identical input"
 # finding). The reference decoder is exactly deterministic
 # (src/libfrad/decoder.py:28-46), so pin the single-threaded FFT plan.
-# Measured cost on the bench host: <6% on the f64 FFT-DCT, none on
-# matmul (the thunk runtime stopped using Eigen for dots). TPU programs
-# are unaffected (CPU-only flag). Opt out with FRAD_TPU_FFT_MT=1;
+# Measured cost on a CPU host: <6% on the f64 FFT-DCT, none on matmul
+# (the thunk runtime stopped using Eigen for dots). GPU programs are
+# unaffected (CPU-only flag). Opt out with FRAD_TPU_FFT_MT=1;
 # a user-provided xla_cpu_multi_thread_eigen flag wins. Best-effort by
 # construction: XLA parses XLA_FLAGS at first backend use, so importing
 # frad_python_tpu after running other jax programs may be too late.
@@ -46,19 +47,20 @@ if not os.environ.get("FRAD_TPU_NO_X64"):
     jax.config.update("jax_enable_x64", True)
 
 # Persistent XLA compilation cache: the batched cores compile one program
-# per (batch, frame, channel) shape, which on a remote-compile backend
-# costs tens of seconds each — paying that once per machine instead of
-# once per process is the difference between a usable and an unusable
-# CLI. Opt out with FRAD_TPU_NO_COMPILE_CACHE=1; an explicit
-# JAX_COMPILATION_CACHE_DIR (or prior jax.config setting) wins.
+# per (batch, frame, channel) shape; paying that once per checkout instead
+# of once per process keeps the CLI usable. An explicit
+# JAX_COMPILATION_CACHE_DIR (or a prior jax.config setting) wins and no
+# other directory is set; otherwise the cache lives at the fixed path
+# <checkout>/.jax_cache (gitignored). Opt out with
+# FRAD_TPU_NO_COMPILE_CACHE=1.
+CACHE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".jax_cache")
+
 if not os.environ.get("FRAD_TPU_NO_COMPILE_CACHE"):
     import jax
 
     if not jax.config.jax_compilation_cache_dir:
-        _cache = os.environ.get("XDG_CACHE_HOME",
-                                os.path.join(os.path.expanduser("~"), ".cache"))
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(_cache, "frad_python_tpu", "jax_cache"))
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from .container import head  # noqa: E402

@@ -2,7 +2,7 @@
 
 Extension policy, metadata header, 32 KiB streaming loop and live
 telemetry match the reference; `--turbo` switches whole regular files to
-the batched TPU pipeline (parallel.batch_encode) for maximum throughput.
+the batched device pipeline (parallel.batch_encode) for maximum throughput.
 """
 
 from __future__ import annotations
@@ -100,14 +100,14 @@ def encode(input_path: str, params: CliParams) -> None:
 
     info = StreamStats()
 
-    # auto-select the batched TPU path for regular files (per-frame
+    # auto-select the batched device path for regular files (per-frame
     # dispatch latency makes streaming slow on accelerators); --no-turbo
     # forces the incremental engine, pipes always stream
     use_turbo = params.turbo if params.turbo is not None else (
         rfile is not sys.stdin.buffer
         and os.fstat(rfile.fileno()).st_size < (1 << 29))
     if use_turbo and rfile is not sys.stdin.buffer:
-        # whole-file batched TPU path
+        # whole-file batched device path
         dtype = ff_format_to_numpy_type(params.pcm)
         raw = rfile.read()
         usable = len(raw) // (dtype.itemsize * params.channels)

@@ -9,8 +9,8 @@ import sys
 from ..utils import cli
 
 BANNER = (
-    "                Fourier Analogue-in-Digital — TPU-native engine\n"
-    "                  frad_python_tpu (JAX/XLA/Pallas + C++ host)\n"
+    "                Fourier Analogue-in-Digital — JAX engine\n"
+    "                  frad_python_tpu (JAX/XLA + C++ host)\n"
 )
 
 HELP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "help")
@@ -59,7 +59,7 @@ def main(argv: list[str] | None = None) -> None:
         path = os.path.join(HELP_DIR, f"{topic}.txt")
         print(open(path, encoding="utf-8").read().replace("{frad}", executable))
     else:
-        print("Fourier Analogue-in-Digital — TPU-native engine", file=sys.stderr)
+        print("Fourier Analogue-in-Digital — JAX engine", file=sys.stderr)
         print(f"Abstract syntax: {executable} [encode|decode|play|repair|meta] "
               f"<input> [flags...]", file=sys.stderr)
         print(f"Type `{executable} help` to get help.", file=sys.stderr)

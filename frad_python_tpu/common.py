@@ -22,8 +22,7 @@ FRM_SIGN = b"\xff\xd0\xd2\x98"
 #: Streaming engines batch deferred frames in power-of-2 groups up to
 #: this size (shared by Encoder._micro_batch and Decoder._drain_pending
 #: so both engines reuse ONE small compiled-shape set — every distinct
-#: batch size costs a device program compile, tens of seconds each on a
-#: remote-compile backend).
+#: batch size costs a device program compile, up to seconds each).
 MICRO_BATCH_MAX = 256
 
 

@@ -147,9 +147,9 @@ class Decoder:
         # e.g. per-frame lossless depth escalation — batch run by run
         # instead of falling back wholesale), then decode each run in
         # power-of-2 groups: an arbitrary batch size would compile a
-        # fresh device program (tens of seconds each on a remote-compile
-        # backend); buckets keep the compiled-shape set tiny and
-        # reusable, same as Encoder._micro_batch
+        # fresh device program (up to seconds each); buckets keep the
+        # compiled-shape set tiny and reusable, same as
+        # Encoder._micro_batch
         idx = 0
         total = len(hs)
         while idx < total:

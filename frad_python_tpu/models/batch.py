@@ -1,8 +1,8 @@
-"""Fused, batched TPU compute cores for the FrAD profiles.
+"""Fused, batched compute cores for the FrAD profiles.
 
 This is the tensor-domain heart of the framework: each core is a single
 jitted function over a frame batch [B, N, C] that XLA fuses into a few
-MXU matmuls (DCT, subband reduction) plus elementwise VPU work. The
+matmuls (DCT, subband reduction) plus elementwise work. The
 streaming engines call these with B=1; `parallel.batch_encode/decode`
 feed whole files; `parallel.sharded` pjits them over a device mesh.
 
@@ -46,7 +46,7 @@ def _mats(n: int, dtype) -> tuple[jax.Array | None, jax.Array | None]:
 # 'data' mesh, so the SAME jitted programs compile SPMD and XLA splits the
 # DCT/subband matmuls per shard with zero communication (overlap-add's
 # neighbour shift becomes one compiler-inserted collective-permute). With
-# one device (the real single-chip rig) this is a plain device_put.
+# one device this is a plain device_put.
 # Per-row results are bit-identical either way — rows never interact
 # except in overlap-add, whose halo row is exchanged, not recomputed.
 # ---------------------------------------------------------------------------
@@ -116,8 +116,8 @@ def place_rows(arr) -> tuple[jax.Array, int]:
     spec = data_sharding(arr.shape[0])
     if spec is not None and arr.dtype == np.float64 \
             and spec.mesh.devices.flat[0].platform != "cpu":
-        # deep-depth f64 transforms run on the CPU backend
-        # (policy.deep_device); never shard them onto an accelerator mesh
+        # archival f64 transforms run on the host CPU backend
+        # (policy.deep_device); never shard them onto a GPU mesh
         spec = None
     if spec is None:
         return jnp.asarray(arr), 0
@@ -292,8 +292,7 @@ def _p1_encode_jit(frames: jax.Array, srate: int, loss_level: jax.Array,
 
     n = frames.shape[1]
     x = jnp.swapaxes(frames, 1, 2)                             # [B, C, N]
-    # lossy profile: masking noise dominates, so the DCT may trade MXU
-    # passes for rate (policy.lossy_matmul_precision, measured r5)
+    # lossy profile: precision from policy.lossy_matmul_precision
     freqs = _dct2_impl(x, _use_matmul(n, x.dtype), fwd,
                        precision=policy.lossy_matmul_precision())
 

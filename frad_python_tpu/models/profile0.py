@@ -6,12 +6,14 @@ escalation on container-float overflow (profile0.py:24-26) -> truncated
 IEEE-float packing at 12..64 bits (profile0.py:29-42). Decode: re-pad
 bytes, NaN/Inf scrub, inverse DCT (profile0.py:52-69).
 
-TPU-first departures: the DCT runs batched over all channels at once as a
-single [ch, N] @ [N, N] matmul (ops/dct.py) instead of a per-channel
-scipy loop, and the bit-packings are vectorised numpy (ops/packing.py).
+Departures: the DCT runs batched over all channels at once as a single
+[ch, N] @ [N, N] matmul (ops/dct.py) instead of a per-channel scipy
+loop, and the bit-packings are vectorised numpy (ops/packing.py).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
@@ -21,21 +23,19 @@ from ..ops.dct import dct2_forward, idct2_forward
 DEPTHS = packing.DEPTHS
 
 
-def _forward(pcm: np.ndarray, dt: str, bits: int = 0) -> np.ndarray:
-    """Forward DCT at dtype `dt`. f64 transforms run on-device as an
-    emulated-f64 matmul for the 48-bit container (policy.deep_on_device:
-    ~2^-47 relative error, within one ulp of the container's 36-bit
-    mantissa), and on the host CPU FFT otherwise (policy.deep_device).
-    Content beyond the f32-based emulation's magnitude range — incl.
-    the f32-overflow escalation redo — always takes the host path."""
-    if dt == "float64":
-        max_abs = float(np.max(np.abs(pcm))) if pcm.size else 0.0
-        if policy.deep_on_device(bits, len(pcm), max_abs):
-            return np.asarray(dct2_forward(pcm, axis=0, force_matmul=True),
-                              dtype=np.float64)
-        with policy.deep_device():
-            return np.asarray(dct2_forward(pcm, axis=0), dtype=np.float64)
-    return np.asarray(dct2_forward(pcm.astype(dt), axis=0), dtype=np.float64)
+def _route(bits: int):
+    """Archival depths run their f64 transform on the host CPU backend
+    (policy.deep_device); every other depth on the default device."""
+    if bits >= policy.DEEP_BITS:
+        return policy.deep_device()
+    return contextlib.nullcontext()
+
+
+def _forward(pcm: np.ndarray, dt: str, bits: int) -> np.ndarray:
+    """Forward DCT at dtype `dt` for a `bits`-deep container."""
+    with _route(bits):
+        return np.asarray(dct2_forward(pcm.astype(dt), axis=0),
+                          dtype=np.float64)
 
 
 def _escalates_deep(max_abs: float, bits: int) -> bool:
@@ -66,7 +66,7 @@ def analogue(pcm: np.ndarray, bits: int, srate: int, little_endian: bool) -> tup
         # via f32 overflow -> inf): redo at archival precision. The
         # 48-bit container shares f64's exponent range, so escalation
         # can never continue past it — the 64-bit depth is reached only
-        # by explicit request, and always takes the host-f64 path.
+        # by explicit request.
         freqs = _forward(pcm, "float64", policy.DEEP_BITS)
         max_abs = float(np.max(np.abs(freqs))) if freqs.size else 0.0
     bits = packing.needed_depth(max_abs, bits)
@@ -82,11 +82,5 @@ def digital(frad: bytes, bit_depth_index: int, channels: int, little_endian: boo
     n = (len(flat) // channels) * channels
     dt = policy.transform_dtype(bits)
     freqs = flat[:n].reshape(-1, channels).astype(dt)
-    if dt == "float64":
-        max_abs = float(np.max(np.abs(freqs))) if freqs.size else 0.0
-        if policy.deep_on_device(bits, len(freqs), max_abs):
-            return np.asarray(idct2_forward(freqs, axis=0, force_matmul=True),
-                              dtype=np.float64)
-        with policy.deep_device():
-            return np.asarray(idct2_forward(freqs, axis=0), dtype=np.float64)
-    return np.asarray(idct2_forward(freqs, axis=0), dtype=np.float64)
+    with _route(bits):
+        return np.asarray(idct2_forward(freqs, axis=0), dtype=np.float64)

@@ -8,7 +8,7 @@ psychoacoustic threshold -> per-bin divisor -> power-law quantisation
 Decode inverts the chain and emits a zero frame on corrupt DEFLATE
 (reference profile1.py:59-64).
 
-TPU-first: the whole tensor chain is the fused jitted core in
+Batched: the whole tensor chain is the fused jitted core in
 models/batch.py (one DCT matmul + one subband matmul + elementwise),
 shared between this streaming wrapper (B=1) and the batch/sharded
 pipelines so both produce identical streams. Host side: EGR + DEFLATE.

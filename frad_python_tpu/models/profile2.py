@@ -7,7 +7,7 @@ like the reference (src/libfrad/fourier/__init__.py:3) but implemented
 for capability parity; depth table differs from profile 1
 (profile2.py:7).
 
-TPU-first: the whole chain — DCT, masking, batched order-12 LPC
+Batched: the whole chain — DCT, masking, batched order-12 LPC
 (unrolled Levinson), FIR analysis / scanned IIR synthesis, quantisation —
 is the fused jitted core in models/batch.py (shared with the batch
 pipeline at B=1); host side is EGR + DEFLATE.

@@ -1,5 +1,5 @@
 """Compute ops: transforms, masking, packing, entropy and error-correction
-kernels. TPU tensor-domain ops are JAX/Pallas; byte-domain ops are
+kernels. Tensor-domain ops are JAX; byte-domain ops are
 vectorised numpy with C++ native fast paths (frad_python_tpu.native)."""
 
 from . import dct, golomb, packing, pcm, psycho, rs, tns_jax, window

@@ -123,7 +123,7 @@ def dequant(x: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# JAX formulations for the batched TPU pipeline (models/batch.py).
+# JAX formulations for the batched pipeline (models/batch.py).
 # Same math as above, expressed with static per-(dlen, srate) constants so
 # everything jits to fixed-shape segment-matmul + gather ops.
 # ---------------------------------------------------------------------------
@@ -131,7 +131,7 @@ def dequant(x: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=256)
 def _mask_consts_jnp(dlen: int, srate: int):
     """Constants for the jitted masking kernel: a [dlen, nb] band-indicator
-    matrix (subband sums become one MXU matmul), per-band 1/width, AHT floor,
+    matrix (subband sums become one matmul), per-band 1/width, AHT floor,
     and the static interpolation gather/weight vectors for mapping."""
     starts, nb, aht_floor = _mask_consts(dlen, srate)
     ind = np.zeros((dlen, max(nb, 1)), dtype=np.float64)
@@ -155,13 +155,16 @@ def _mask_consts_jnp(dlen: int, srate: int):
 
 def mask_thres_mos_jnp(freqs, srate: int, loss_level, alpha: float = SPREAD_ALPHA):
     """JAX masking thresholds for [..., N] spectra -> [..., SUBBANDS]."""
+    import jax
     import jax.numpy as jnp
 
     n = freqs.shape[-1]
     ind, inv_w, aht_floor, nb, *_ = _mask_consts_jnp(n, srate)
     dt = freqs.dtype
     sq = (freqs * freqs).astype(dt)
-    sums = sq @ jnp.asarray(ind, dtype=dt)                    # [..., nb]
+    # HIGHEST: an f32 dot left at DEFAULT runs in TF32 on a GPU
+    sums = jnp.matmul(sq, jnp.asarray(ind, dtype=dt),
+                      precision=jax.lax.Precision.HIGHEST)      # [..., nb]
     rms = jnp.sqrt(sums * jnp.asarray(inv_w, dtype=dt)) ** alpha
     th = jnp.maximum(rms, jnp.asarray(aht_floor[:ind.shape[1]], dtype=dt)) * loss_level
     pad = SUBBANDS - nb
@@ -189,17 +192,12 @@ def mapping_from_opus_jnp(mapped_thres, freqs_len: int, srate: int):
     """JAX per-bin divisor interpolation for [..., SUBBANDS] thresholds,
     as ONE [..., SUBBANDS] @ [SUBBANDS, freqs_len] matmul.
 
-    The gather formulation (lo + (hi-lo)*frac per bin) runs on the VPU
-    and dominated both lossy cores once the DCT dropped to one bf16
-    pass; the matmul form rides the MXU — measured on the v5e (paired
-    in-process A/B on the product bodies): encode core 3.40M -> 5.74M
-    f/s, decode 2.63M -> 6.10M f/s. Numerically it computes
-    lo*(1-frac) + hi*frac (vs the reference formula's
+    The matmul replaces a per-bin gather (lo + (hi-lo)*frac). Numerically
+    it computes lo*(1-frac) + hi*frac (vs the reference formula's
     lo + (hi-lo)*frac, reference p1tools.py:35-41) — an ulp-level
-    reassociation with zero quantised-symbol flips over 2.6M bench
-    samples; the numpy `mapping_from_opus` keeps the reference formula
-    exactly. HIGHEST precision: the matrix is tiny and the thresholds
-    deserve full f32."""
+    reassociation; the numpy `mapping_from_opus` keeps the reference
+    formula exactly. HIGHEST precision: the matrix is tiny and the
+    thresholds deserve full f32."""
     import jax
     import jax.numpy as jnp
 
@@ -210,13 +208,9 @@ def mapping_from_opus_jnp(mapped_thres, freqs_len: int, srate: int):
 
 
 def quant_jnp(x):
-    """sign(x)*|x|^0.75 as sqrt(|x|*sqrt(|x|)) — two VPU sqrts instead
-    of the transcendental pow (exp o log). Measured on the v5e (r5,
-    paired in-process A/B on the product encode body): 2.10M -> 3.55M
-    frames/s (+69%) with ZERO changes in the rint'd integer symbols
-    over 2.6M samples of bench audio (sqrt is correctly rounded; the
-    compositions differ by <=1 ulp). The inverse (dequant) keeps pow:
-    the x*cbrt(|x|) form measured SLOWER than pow on this chip."""
+    """sign(x)*|x|^0.75 as sqrt(|x|*sqrt(|x|)) — two correctly rounded
+    sqrts instead of the transcendental pow (exp o log); the
+    compositions differ by <=1 ulp. The inverse (dequant) keeps pow."""
     import jax.numpy as jnp
     a = jnp.abs(x)
     return jnp.sign(x) * jnp.sqrt(a * jnp.sqrt(a))

@@ -7,7 +7,7 @@ appended. Compatibility is enforced structurally: every emitted codeword
 evaluates to zero at the generator roots a^0..a^{nsym-1}, which is the
 complete RS(fcr=0, gen=2, prim=0x11D) wire contract.
 
-Design (TPU-framework style, host-native):
+Design (vectorised, host-native):
 * encode runs the parity LFSR across *all* blocks of a frame at once —
   O(dsize) numpy steps of width nblocks instead of reedsolo's per-byte
   per-block Python loop.

@@ -2,7 +2,7 @@
 
 The reference (src/libfrad/fourier/tools/p2tools.py) runs per-channel
 scalar loops through scipy.signal.lfilter; this module is the batched
-TPU formulation over [..., N] spectra used by the fused profile-2 cores
+formulation over [..., N] spectra used by the fused profile-2 cores
 (tests/test_ops.py compares it lane-by-lane against the reference
 implementation itself on tonal/noise/gate-edge spectra):
 

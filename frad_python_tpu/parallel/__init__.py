@@ -1,5 +1,5 @@
 """Distributed frame-batch pipeline: whole-file batch codec, mesh-sharded
-cores with ICI halo exchange, and multi-host orchestration over DCN
+cores with a ring halo exchange, and multi-host orchestration
 (SURVEY §2 N1-N6)."""
 
 from . import multihost

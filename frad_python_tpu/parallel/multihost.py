@@ -1,4 +1,4 @@
-"""Multi-host orchestration over DCN (SURVEY §2 N4, §5 distributed backend).
+"""Multi-host orchestration (SURVEY §2 N4, §5 distributed backend).
 
 A FrAD pod job splits a stream into contiguous sample spans per host
 (overlap-halo included in the span so no cross-host exchange is needed on
@@ -16,8 +16,8 @@ Usage on each host of a pod slice:
     stream_part = batch_encode(pcm[span.start:span.stop], ...)
     multihost.gather_bitstream(stream_part)  # -> full stream on host 0
 
-Collectives ride ICI within a host's chips and DCN across hosts; the
-byte-domain gather moves ragged per-host streams point-to-point through
+Collectives ride the devices' interconnect within a host and the network
+across hosts; the byte-domain gather moves ragged per-host streams point-to-point through
 the distributed-runtime KV service (O(total bytes), full stream only on
 process 0), with a chunk-bounded allgather fallback.
 """
@@ -39,8 +39,8 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Bring up the jax distributed runtime (no-op when single-process).
 
-    On TPU pods with the standard environment, bare
-    `jax.distributed.initialize()` autodetects everything.
+    Pass the coordinator address (`host:port`), the process count and
+    this process's id; nothing is autodetected on a plain GPU cluster.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -50,7 +50,7 @@ def init_distributed(coordinator_address: str | None = None,
 
 
 def global_mesh(axis: str = "data") -> Mesh:
-    """1-D mesh over every chip of every process (ICI-major device order)."""
+    """1-D mesh over every device of every process (JAX's global order)."""
     return Mesh(np.asarray(jax.devices()), (axis,))
 
 

@@ -8,7 +8,7 @@ once the overlap halo is materialised, so the sharding recipe is
   per shard with zero communication.
 * N2 (SP/halo): the decoder's overlap-add needs each frame's left
   neighbour's tail; at shard boundaries that's one depth-1 ring
-  `ppermute` over ICI inside `shard_map` (`overlap_add_sharded`).
+  `ppermute` inside `shard_map` (`overlap_add_sharded`).
 * N3 (channel sharding): the transform chain is channel-independent, so
   a 2-D (data, channel) mesh (`make_mesh_2d`) shards the C axis too —
   `_frame_spec` picks the PartitionSpec per mesh, and the compiled
@@ -42,8 +42,7 @@ def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
 def make_mesh_2d(n_data: int, n_channel: int) -> Mesh:
     """2-D (data, channel) mesh — SURVEY §2 N3: the per-channel transform
     chain (DCT / masking / quant) is channel-independent, so the C axis
-    shards with ZERO communication; lay 'channel' innermost so its
-    (nonexistent) collectives would ride the fastest ICI links."""
+    shards with ZERO communication."""
     devs = np.asarray(jax.devices()[: n_data * n_channel])
     assert devs.size == n_data * n_channel, (
         f"need {n_data * n_channel} devices, have {devs.size}")
@@ -155,22 +154,12 @@ def sharded_p2_decode(mesh: Mesh, freqs: np.ndarray, thres: np.ndarray,
     return np.asarray(fn(f, t, lp, jnp.asarray(factor, f.dtype), inv))
 
 
-def overlap_add_sharded(mesh: Mesh, frames: np.ndarray, olap: int, cut: int
-                        ) -> np.ndarray:
-    """Decoder overlap-add with an explicit ICI halo exchange.
-
-    frames [B, N, C] sharded on B. Each shard crossfades locally; the
-    tail of each shard's LAST frame is sent to the right neighbour with a
-    depth-1 ring `ppermute` so shard boundaries blend exactly like the
-    sequential decoder. Device 0 masks the wrapped-around halo (the
-    global first frame has no predecessor).
-    """
+def overlap_add_sharded_fn(mesh: Mesh, olap: int, cut: int, dtype):
+    """The jitted shard_map program behind `overlap_add_sharded`, for
+    callers that lower it (e.g. to check the halo collective)."""
     from jax import shard_map
 
     ndev = mesh.shape["data"]
-    b = frames.shape[0]
-    assert b % ndev == 0, "batch must divide the mesh's data axis"
-    dtype = frames.dtype
     w = (0.5 * (1.0 - np.cos(np.pi * np.arange(1, olap + 1) / (olap + 1)))).astype(dtype)
 
     def local(fr):
@@ -193,11 +182,25 @@ def overlap_add_sharded(mesh: Mesh, frames: np.ndarray, olap: int, cut: int
         blended = jnp.concatenate([row0[None], blended[1:]], axis=0)
         return jnp.concatenate([blended, fr[:, olap:cut, :]], axis=1)
 
+    return jax.jit(shard_map(local, mesh=mesh, in_specs=_frame_spec(mesh),
+                             out_specs=_frame_spec(mesh)))
+
+
+def overlap_add_sharded(mesh: Mesh, frames: np.ndarray, olap: int, cut: int
+                        ) -> np.ndarray:
+    """Decoder overlap-add with an explicit ring halo exchange.
+
+    frames [B, N, C] sharded on B. Each shard crossfades locally; the
+    tail of each shard's LAST frame is sent to the right neighbour with a
+    depth-1 ring `ppermute` so shard boundaries blend exactly like the
+    sequential decoder. Device 0 masks the wrapped-around halo (the
+    global first frame has no predecessor).
+    """
+    ndev = mesh.shape["data"]
+    assert frames.shape[0] % ndev == 0, "batch must divide the mesh's data axis"
+    fn = overlap_add_sharded_fn(mesh, olap, cut, frames.dtype)
     spec = NamedSharding(mesh, _frame_spec(mesh))
-    fn = jax.jit(shard_map(local, mesh=mesh, in_specs=_frame_spec(mesh),
-                           out_specs=_frame_spec(mesh)))
-    out = fn(jax.device_put(jnp.asarray(frames), spec))
-    return np.asarray(out)
+    return np.asarray(fn(jax.device_put(jnp.asarray(frames), spec)))
 
 
 def training_step_equivalent(mesh: Mesh, pcm_frames: np.ndarray, srate: int,

@@ -1,8 +1,9 @@
 """Test harness: force an 8-device virtual CPU mesh before jax initialises.
 
 Multi-chip sharding tests run on the host platform per SURVEY §4.7
-(xla_force_host_platform_device_count); the real-TPU benchmark path is
-exercised by bench.py, not the test suite.
+(xla_force_host_platform_device_count). Tests never need a GPU: those
+marked `gpu` skip here, and `python chip_smoke.py` runs the same checks
+on the card; bench.py measures it.
 """
 
 import os

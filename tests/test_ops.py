@@ -341,8 +341,8 @@ class TestDevicePack:
 class TestLossyPrecisionPolicy:
     def test_env_resolution(self, monkeypatch):
         """FRAD_TPU_LOSSY_PRECISION resolves to the named Precision; the
-        backend default is DEFAULT on TPU (measured r5: 2x encode core
-        for -0.008 dB SNR) and HIGHEST elsewhere (inert on CPU f32)."""
+        default is HIGHEST on every platform (DEFAULT would be TF32 on a
+        GPU; inert on CPU f32)."""
         from jax import lax
 
         from frad_python_tpu.ops import policy

@@ -380,7 +380,7 @@ class TestI16SymbolUpload:
 
 
 class TestQuantisedUploads:
-    """The bench TPU path quantises the h2d PCM transfer (i16 lossy /
+    """The bench's f32 (GPU) path quantises the h2d PCM transfer (i16 lossy /
     i24 lossless) and fuses the P1 i16 encode with the on-device EGR
     pack into one jitted program (pipeline._p1_enc_egr_fused). On the
     8-device CPU mesh this also exercises the fused program SPMD."""

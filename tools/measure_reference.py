@@ -172,8 +172,8 @@ CONFIGS = {
                               frame_size=2048, overlap_ratio=16, loss_level=0.5,
                               ecc=True),
     # archival deep depths: the reference runs these through the same f64
-    # path as 24-bit (profile0.py:21); ours routes 48-bit to the on-device
-    # emulated-f64 matmul on TPU and 64-bit to CPU f64 (ops/policy.py)
+    # path as 24-bit (profile0.py:21); ours runs both on the host CPU
+    # backend's f64 FFT (ops/policy.deep_device)
     "p0_stereo_48b": dict(profile=0, srate=44100, channels=2, bits=48,
                           frame_size=2048),
     "p0_stereo_64b": dict(profile=0, srate=44100, channels=2, bits=64,

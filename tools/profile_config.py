@@ -12,10 +12,6 @@ import time
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-import jax  # noqa: E402
-
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import frad_python_tpu  # noqa: E402,F401
 from frad_python_tpu import native  # noqa: E402
@@ -33,16 +29,8 @@ import bench  # noqa: E402  (REPO is already on sys.path)
 name = sys.argv[1] if len(sys.argv) > 1 else "p1_stereo_44k1"
 passes = int(sys.argv[2]) if len(sys.argv) > 2 else 3
 cfg = bench.CONFIGS[name]
-compute_dtype = "float32" if jax.default_backend() == "tpu" else None
 pcm = bench.make_audio(30.0, cfg["srate"], cfg["channels"])
-on_tpu = compute_dtype == "float32"
-kw = dict(loss_level=0.5, enable_ecc=bool(cfg.get("ecc")),
-          compute_dtype=compute_dtype, workers=4,
-          i24_upload=on_tpu and cfg["profile"] == 0 and cfg["bits"] == 24,
-          i16_upload=on_tpu and cfg["profile"] == 1 and cfg["bits"] == 16)
-dec_kw = dict(fix_error=bool(cfg.get("ecc")), compute_dtype=compute_dtype,
-              i16_transfer=cfg["profile"] == 1,
-              i24_transfer=cfg["profile"] == 0 and cfg["bits"] == 24)
+kw, dec_kw = bench.cell_kwargs(cfg)
 
 # warm-up
 stream = batch_encode(pcm, cfg["profile"], cfg["srate"], cfg["bits"],

@@ -12,9 +12,6 @@ sys.path.insert(0, str(REPO))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
 import frad_python_tpu  # noqa: F401
 
 
